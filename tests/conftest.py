@@ -1,8 +1,12 @@
-"""Test configuration: CPU backend, x64 for oracle parity, 8 virtual devices.
+"""Test configuration: x64 for oracle parity, 8 virtual CPU devices, and
+the `gpu` fixture for tests that need the card.
 
-The 8 virtual CPU devices (xla_force_host_platform_device_count) are the
-fake-backend analog for multi-chip tests (SURVEY §4): halo-exchange and
-agglomeration logic runs on a real 8-device mesh without TPU hardware.
+The platform comes from JAX_PLATFORMS: the CPU suite runs with
+JAX_PLATFORMS=cpu, where the 8 virtual CPU devices
+(xla_force_host_platform_device_count) are the fake-backend analog for
+multi-device tests (SURVEY §4) — halo-exchange and agglomeration logic runs
+on a real 8-device mesh without accelerator hardware.  On a GPU machine,
+`pytest -m gpu tests/` runs the card-only tests (chip_smoke.py does).
 """
 
 import os
@@ -15,11 +19,25 @@ if "xla_force_host_platform_device_count" not in _flags:
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+# keep the suite hermetic: no persistent compile cache written by entry
+# points the tests drive (cli.main enables it)
+jax.config.update("jax_enable_compilation_cache", False)
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+
+
+@pytest.fixture
+def gpu():
+    """The first JAX device when it is a GPU; skips the test otherwise.
+
+    Decided here, at run time, never at import or collection: every xdist
+    worker must collect the same tests."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU (JAX platform is {dev.platform!r})")
+    return dev
 
 
 @pytest.fixture(scope="session")

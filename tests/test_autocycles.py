@@ -1,14 +1,13 @@
-"""Round-5 safety features: automatic cycle-count derivation (VERDICT r4
-next #4), certificate-margin warnings, the slim-operator refined opening
-(ADVICE r4 #1), the certify-cadence chunked unroll (VERDICT r4 weak #6),
-and the in-cycle coarse backend routing (VERDICT r4 next #2).
+"""Safety features: automatic cycle-count derivation, certificate-margin
+warnings, the slim-operator refined opening and the certify-cadence chunked
+unroll.
 
 The weak-dominance escalation tests exploit that the one-cycle residual is
 controlled by the dominance parameter δ = 4r|ν| (r = dt/(2h²)), not by n
-directly: δ = 0.655 — the value at which the n=8192 flagship measured a
-FAILED 1-cycle certificate of 8.8e-5 on chip (RESULTS.md round 4) — is
-reproduced at n=128 via ν, and the measured CPU residual (8.75e-5) matches
-the chip's to within 1%.
+directly: δ = 0.655 — the value at which the n=8192 flagship showed a
+FAILED 1-cycle certificate of 8.8e-5 on the accelerator the solver was first
+built for — is reproduced at n=128 via ν, and the CPU residual (8.75e-5)
+matches that certificate to within 1%.
 """
 
 import warnings
@@ -17,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
+from hpcmg import ProblemConfig, SolverConfig
+from hpcmg.models import AdvectionDiffusion
 
 
 def _delta_solver(**kw):
@@ -30,9 +29,9 @@ def _delta_solver(**kw):
 
 
 def test_resolved_num_cycles_matches_measured_choices():
-    """The dominance model must reproduce every on-chip sweep decision
-    (bench_data/sweep_tpu_delta.jsonl): 1 cycle at n<=2048, 2 at n=4096
-    (measured 7.8e-7 — over tol/2) and n=8192, more at n=16384."""
+    """The dominance model must reproduce every calibration decision
+    (config.py::resolved_num_cycles): 1 cycle at n<=2048, 2 at n=4096
+    (certificate 7.8e-7 — over tol/2) and n=8192, more at n=16384."""
     s = _delta_solver(num_cycles=None)
     picks = {}
     for n in (256, 1024, 2048, 4096, 8192, 16384):
@@ -82,7 +81,7 @@ def test_run_warns_when_f32_certificate_margin_thin():
 
 def test_certify_every_outside_delta_warns():
     """certify_every is only honored by the delta stepper; requesting it
-    elsewhere must not be silently ignored (ADVICE r4 #2)."""
+    elsewhere must not be silently ignored."""
     with pytest.warns(UserWarning, match="certify_every"):
         SolverConfig(certify_every=10)
 
@@ -90,9 +89,9 @@ def test_certify_every_outside_delta_warns():
 def test_refined_opening_tolerates_slim_operator():
     """Non-delta refined stepping with a SLIM (velocities-only) fine_hi —
     the n>=8192 auto-slim configuration — must trace and run via the
-    rhs_and_residual0_auto dispatch (ADVICE r4 #1: previously a trace-time
-    TypeError on aa=None), and match the stored-coefficient build exactly
-    (both openings are correctly-rounded f64 of the same expressions)."""
+    rhs_and_residual0_auto dispatch, and match the stored-coefficient build
+    exactly (both openings are correctly-rounded f64 of the same
+    expressions)."""
     p = ProblemConfig(n=64, num_steps=5)
     slim = AdvectionDiffusion(
         p, SolverConfig(dtype=jnp.float32, refine_dtype=jnp.float64,
@@ -143,45 +142,3 @@ def test_certify_chunked_unroll_matches_plain_and_cadence():
     np.testing.assert_array_equal(checked, expected)
     assert rels_hi[checked].max() <= 1e-6
     assert bool(np.asarray(st["certified"]).all())
-
-
-def test_incycle_auto_routing_mechanism_and_measured_default(monkeypatch):
-    """The in-cycle coarse routing knob (VERDICT r4 next #2): with the
-    crossover raised, auto routes in-cycle 5-point levels strictly below it
-    to jnp — but NOT the level at the crossover, not Galerkin (nine-band)
-    levels, not isolated blocks, and never explicit backend='pallas'.  The
-    DEFAULT is 0 (routing off): the round-5 on-chip pricing refuted the
-    round-4 hypothesis on every tower-ineligible config
-    (bench_data/incycle.jsonl, galerkin.jsonl)."""
-    import dataclasses
-
-    import jax
-
-    from hpcclassmultigridproject_tpu.mg import cycle as cyc
-    from hpcclassmultigridproject_tpu.mg.levels import build_hierarchy
-    from hpcclassmultigridproject_tpu.core.problem import rotating_velocity
-
-    assert cyc._AUTO_JNP_MAX_INCYCLE_N == 0, (
-        "default must stay 0 (per-level Pallas, the measured winner) unless "
-        "re-priced on hardware via scripts/ab_incycle_tpu.py"
-    )
-    v1, v2 = rotating_velocity(1024, dtype=jnp.float32)
-    levels = build_hierarchy(v1, v2, 1.0 / 10240, -4e-4, 6, dtype=jnp.float32)
-    cfg = SolverConfig(dtype=jnp.float32, backend="auto")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    fine, at512, coarse = levels[0], levels[1], levels[2]  # 1024, 512, 256
-    # default: routing off — in_cycle makes no difference
-    assert cyc._pallas_eligible(cfg, coarse, sharded=False, in_cycle=True)
-    monkeypatch.setattr(cyc, "_AUTO_JNP_MAX_INCYCLE_N", 512)
-    assert cyc._pallas_eligible(cfg, fine, sharded=False, in_cycle=True)
-    assert cyc._pallas_eligible(cfg, at512, sharded=False, in_cycle=True)
-    assert cyc._pallas_eligible(cfg, coarse, sharded=False, in_cycle=False)
-    assert not cyc._pallas_eligible(cfg, coarse, sharded=False, in_cycle=True)
-    # Galerkin (nine-band) levels are exempt (galerkin.jsonl round 5)
-    nine = dataclasses.replace(coarse, ne=coarse.aa, nw=coarse.aa,
-                               se=coarse.aa, sw=coarse.aa,
-                               diag=coarse.aa)
-    assert cyc._pallas_eligible(cfg, nine, sharded=False, in_cycle=True)
-    # explicit backend='pallas' is never overridden by the in-cycle floor
-    cfg_p = SolverConfig(dtype=jnp.float32, backend="pallas")
-    assert cyc._pallas_eligible(cfg_p, coarse, sharded=False, in_cycle=True)

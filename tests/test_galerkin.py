@@ -10,21 +10,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-from hpcclassmultigridproject_tpu.core.layout import (
+from hpcmg import ProblemConfig, SolverConfig
+from hpcmg.core.layout import (
     interior_mask,
     pad_field,
     padded_shape,
 )
-from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
-from hpcclassmultigridproject_tpu.mg.levels import build_hierarchy
-from hpcclassmultigridproject_tpu.ops.padded import (
+from hpcmg.models import AdvectionDiffusion
+from hpcmg.mg.levels import build_hierarchy
+from hpcmg.ops.padded import (
     apply_A,
     prolong_bilinear,
     restrict_full_weighting,
     restrict_inject,
 )
-from hpcclassmultigridproject_tpu.sparse.galerkin import (
+from hpcmg.sparse.galerkin import (
     dense_interior_matrix_9pt,
     galerkin_coarse_level,
 )

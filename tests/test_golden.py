@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig, native
-from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
+from hpcmg import ProblemConfig, SolverConfig, native
+from hpcmg.models import AdvectionDiffusion
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
@@ -65,7 +65,7 @@ def test_delta_form_n256_matches_golden():
 
 
 def test_float32_run_close_to_oracle():
-    """f32 TPU-mode run stays within single-precision accumulation error of
+    """f32 run stays within single-precision accumulation error of
     the double oracle over 100 steps."""
     _, uT, stats = _run_jax(64, dtype=jnp.float32, tol=1e-5)
     assert uT[32, 32] == pytest.approx(CENTER[64], abs=1e-8)

@@ -2,7 +2,7 @@
 
 Launches TWO OS processes, each with 4 virtual CPU devices, connected via
 `jax.distributed.initialize` (parallel/distributed.py) — the fake-backend
-analog of a 2-host DCN slice.  The flagship mixed-precision configuration
+analog of a 2-host cluster.  The flagship mixed-precision configuration
 runs block-partitioned over the global 8-device mesh and must match the
 single-process 8-device result (which test_refine.py pins against the
 single-device run).
@@ -37,6 +37,7 @@ def test_two_process_flagship_matches_single_process(tmp_path):
     port = _free_port()
     out = str(tmp_path / "uT.npy")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"  # a CPU-mesh test wherever it runs
     procs = [
         subprocess.Popen(
             [sys.executable, WORKER, str(port), "2", str(pid), out],
@@ -54,9 +55,9 @@ def test_two_process_flagship_matches_single_process(tmp_path):
     uT_mp = np.load(out)
 
     # single-process reference on the same global problem (8 local devices)
-    from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-    from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
-    from hpcclassmultigridproject_tpu.parallel import distributed_run, make_mesh
+    from hpcmg import ProblemConfig, SolverConfig
+    from hpcmg.models import AdvectionDiffusion
+    from hpcmg.parallel import distributed_run, make_mesh
 
     model = AdvectionDiffusion(
         ProblemConfig(n=64, num_steps=5),

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import native
-from hpcclassmultigridproject_tpu.core.problem import cn_coefficients
-from hpcclassmultigridproject_tpu.mg.levels import Level, build_hierarchy, dense_interior_matrix
-from hpcclassmultigridproject_tpu.ops import (
+from hpcmg import native
+from hpcmg.core.problem import cn_coefficients
+from hpcmg.mg.levels import Level, build_hierarchy, dense_interior_matrix
+from hpcmg.ops import (
     apply_A,
     compute_rhs,
     interior_norm,
@@ -79,8 +79,8 @@ def test_rb_gauss_seidel_matches_native():
 
 
 def test_apply_A_matches_dense_matrix():
-    from hpcclassmultigridproject_tpu.core.layout import crop_field, pad_field
-    from hpcclassmultigridproject_tpu.ops import padded as pops
+    from hpcmg.core.layout import crop_field, pad_field
+    from hpcmg.ops import padded as pops
 
     u, v1, v2 = _rand_fields()
     levels = build_hierarchy(jnp.asarray(v1), jnp.asarray(v2), DT, NU, 1,

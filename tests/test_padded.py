@@ -1,28 +1,28 @@
-"""Equivalence suite: padded TPU-layout kernels (ops/padded.py) vs the
+"""Equivalence suite: padded-layout kernels (ops/padded.py) vs the
 logical-shape oracle kernels (ops/stencil.py etc.).
 
-The padded layout is the production path (25x faster per sweep on TPU at
-N=1024); these tests pin that it is *numerically identical* to the oracle
-path on every kernel, including the invariants (zeros outside the interior).
+The padded layout is the production path; these tests pin that it is
+*numerically identical* to the oracle path on every kernel, including the
+invariants (zeros outside the interior).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu.core.layout import (
+from hpcmg.core.layout import (
     crop_field,
     interior_mask,
     pad_field,
     padded_shape,
     shift,
 )
-from hpcclassmultigridproject_tpu.core.problem import (
+from hpcmg.core.problem import (
     cn_coefficients,
     cn_coefficients_padded,
 )
-from hpcclassmultigridproject_tpu.ops import padded as pops
-from hpcclassmultigridproject_tpu.ops import smoothers, stencil, transfer
+from hpcmg.ops import padded as pops
+from hpcmg.ops import smoothers, stencil, transfer
 
 N = 20
 H = 1.0 / N
@@ -165,13 +165,13 @@ def test_from_v_variants_match_precomputed():
     """The recomputed-coefficient (from_v) kernels are bit-identical to the
     precomputed-field kernels in IEEE f64 — the expressions mirror
     mg/levels.py::_np_cn_coefficients exactly (production opening of the
-    refined timestep, RESULTS.md)."""
+    refined timestep)."""
     import jax.numpy as jnp
     import numpy as np
 
-    from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-    from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
-    from hpcclassmultigridproject_tpu.ops import padded as pops
+    from hpcmg import ProblemConfig, SolverConfig
+    from hpcmg.models import AdvectionDiffusion
+    from hpcmg.ops import padded as pops
 
     m = AdvectionDiffusion(ProblemConfig(n=64), SolverConfig(dtype=jnp.float64))
     level, u = m.levels[0], m.u0

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
-from hpcclassmultigridproject_tpu.parallel import (
+from hpcmg import ProblemConfig, SolverConfig
+from hpcmg.models import AdvectionDiffusion
+from hpcmg.parallel import (
     distributed_run,
     factor_2d,
     level_shardings,

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hpcclassmultigridproject_tpu import SolverConfig
-from hpcclassmultigridproject_tpu.models import Poisson
-from hpcclassmultigridproject_tpu.sparse.galerkin import dense_interior_matrix_9pt
+from hpcmg import SolverConfig
+from hpcmg.models import Poisson
+from hpcmg.sparse.galerkin import dense_interior_matrix_9pt
 
 
 def _dense_solution(model):

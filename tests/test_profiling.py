@@ -7,9 +7,9 @@ phase and that the modeled per-step counts reconstruct a sane breakdown.
 
 import jax.numpy as jnp
 
-from hpcclassmultigridproject_tpu import ProblemConfig, SolverConfig
-from hpcclassmultigridproject_tpu.models import AdvectionDiffusion
-from hpcclassmultigridproject_tpu.utils.profiling import (
+from hpcmg import ProblemConfig, SolverConfig
+from hpcmg.models import AdvectionDiffusion
+from hpcmg.utils.profiling import (
     _phase_counts,
     measure_phases,
     profile_step,
@@ -60,7 +60,7 @@ def test_phase_counts_v_vs_w():
 
 
 def test_cli_profile_runs(capsys):
-    from hpcclassmultigridproject_tpu.cli import main
+    from hpcmg.cli import main
 
     rc = main(["profile", "--n", "64", "--levels", "2", "--steps", "4",
                "--cycle-mode", "fixed", "--num-cycles", "1",

@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hpcclassmultigridproject_tpu.core.layout import interior_mask, pad_field, padded_shape
-from hpcclassmultigridproject_tpu.mg.levels import build_hierarchy
-from hpcclassmultigridproject_tpu.ops import padded as pops
-from hpcclassmultigridproject_tpu.sparse.galerkin import galerkin_coarse_level
-from hpcclassmultigridproject_tpu.sparse.matrix import (
+from hpcmg.core.layout import interior_mask, pad_field, padded_shape
+from hpcmg.mg.levels import build_hierarchy
+from hpcmg.ops import padded as pops
+from hpcmg.sparse.galerkin import galerkin_coarse_level
+from hpcmg.sparse.matrix import (
     level_to_bcoo,
     level_to_bcsr,
     spmv_apply,
